@@ -1,4 +1,4 @@
-"""Regression tests for the round-2 advisor findings (ADVICE.md r2).
+"""Regression tests for the round-2 review findings.
 
 1. scan_shadows f16 k storage: the stored blocker distance must stay in
    [0, W] for far off-screen lights (directional pseudo-centers) — the
@@ -13,14 +13,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.lighting.scan_shadows import _bidirectional_scan
-from illuminant_tpu.raster.tiled import (
+from illuminant.lighting.scan_shadows import _bidirectional_scan
+from illuminant.raster.tiled import (
     KERNEL_QUAD,
     TiledRasterConfig,
     rasterize_tiled_jit as rasterize_tiled,
     rasterize_tiled_alpha_jit as rasterize_tiled_alpha,
 )
-from illuminant_tpu.utils.histogram import bucket_boundaries, \
+from illuminant.utils.histogram import bucket_boundaries, \
     compute_histogram
 
 

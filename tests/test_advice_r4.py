@@ -1,6 +1,6 @@
 """Round-4 advice/verdict pins: the half-res extra-family lever's bound,
 particle-light tiled overflow diagnostics, and windowed-light bounds
-safety (VERDICT r3 #4/#5, ADVICE r3 medium/low items).
+safety (round-3 review items).
 """
 
 import jax
@@ -8,17 +8,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import (
     LightingEnvironment,
     SphereLightSource,
 )
-from illuminant_tpu.lighting.gbuffer import flat_ground
-from illuminant_tpu.lighting.particle_light import (
+from illuminant.lighting.gbuffer import flat_ground
+from illuminant.lighting.particle_light import (
     ParticleLightSource,
     accumulate_particle_lights,
 )
-from illuminant_tpu.lighting.windowed import (
+from illuminant.lighting.windowed import (
     accumulate_windowed,
     window_deficit_px,
     window_for_support,
@@ -26,7 +26,7 @@ from illuminant_tpu.lighting.windowed import (
 
 
 def _flagship_frame(scale: float, h=144, w=256):
-    from illuminant_tpu.scenes import build_flagship
+    from illuminant.scenes import build_flagship
 
     scene = build_flagship(
         height=h, width=w, n_lights=4, capacity=1 << 10, spawn_max=256,
@@ -53,9 +53,8 @@ def test_halfres_extra_family_bound():
     extra_family_scale=0.5) is band-limited: vs full-res accumulation
     the uint8 output differs by ~0 almost everywhere, with a sub-percent
     fraction of shadow-silhouette pixels where the half-res scan shifts
-    an edge by a pixel (an edge shift, not an energy loss). Measured on
-    TPU at 540x960 (tools/measure_halfres.py, ramp-softened flagship):
-    mean 0.023 LSB, p99 1 LSB, frac(>2 LSB) 0.086%. Reference behavior
+    an edge by a pixel (an edge shift, not an energy loss). Measured at
+    540x960 on the ramp-softened flagship: mean 0.023 LSB, p99 1 LSB, frac(>2 LSB) 0.086%. Reference behavior
     at scale 1.0: every family shades at lightmap res in one pass
     (LightingRenderer.cs:1004-1168) — the parity preset's setting."""
     half = _flagship_frame(0.5)
@@ -69,7 +68,7 @@ def test_halfres_extra_family_bound():
 
 
 def _clustered_system(n=64, at=(64.0, 64.0, 20.0)):
-    from illuminant_tpu.particles.system import (
+    from illuminant.particles.system import (
         ParticleSystem, ParticleSystemConfig)
 
     cfg = ParticleSystemConfig(capacity=n, updates_per_second=0.0,
@@ -86,7 +85,7 @@ def _clustered_system(n=64, at=(64.0, 64.0, 20.0)):
 
 def test_particle_light_tiled_overflow_diagnostic():
     """A dense particle cluster overflowing the per-tile light capacity
-    is REPORTED, not silent (ADVICE r3 medium: emitters cluster by
+    is REPORTED, not silent (emitters cluster by
     nature; the reference just instances every quad so it never drops,
     ParticleLight.fx + LightingRenderer.cs:1138-43)."""
     system = _clustered_system(64)
@@ -131,8 +130,7 @@ def test_particle_light_auto_shuns_overflowing_cluster():
 def test_windowed_truncation_diagnostic():
     """An oversized light either fits its derived window or reports a
     positive deficit (the reference sizes every instanced quad from its
-    light's bounds so it never truncates, LightingRenderer.cs:1193-1446;
-    VERDICT r3 #5)."""
+    light's bounds so it never truncates, LightingRenderer.cs:1193-1446)."""
     h = w = 128
     env = LightingEnvironment().uniforms()
     gb = flat_ground(h, w, env)

@@ -2,14 +2,14 @@
 
 import numpy as np
 
-from illuminant_tpu.lighting.billboard import (
+from illuminant.lighting.billboard import (
     Billboard,
     TYPE_AUTO,
     TYPE_NORMAL_BILLBOARD,
     rasterize_billboards,
 )
-from illuminant_tpu.lighting import gbuffer as gbuf
-from illuminant_tpu.lighting.environment import LightingEnvironment
+from illuminant.lighting import gbuffer as gbuf
+from illuminant.lighting.environment import LightingEnvironment
 
 
 def _gb():

@@ -10,14 +10,14 @@ per-frame budget (MaximumFieldUpdatesPerFrame) spreads regeneration.
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import RendererConfig
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import RendererConfig
+from illuminant.lighting.environment import (
     LightingEnvironment,
     LightObstruction,
 )
-from illuminant_tpu.lighting.renderer import LightingRenderer
-from illuminant_tpu.sdf.sampling import sample
-from illuminant_tpu.sdf.volume import SdfVolumeConfig
+from illuminant.lighting.renderer import LightingRenderer
+from illuminant.sdf.sampling import sample
+from illuminant.sdf.volume import SdfVolumeConfig
 
 
 def _make(budget_all=True):

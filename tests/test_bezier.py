@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from illuminant_tpu.ops import bezier as bz
+from illuminant.ops import bezier as bz
 
 
 def oracle_t(min_value, max_value, mode, value):

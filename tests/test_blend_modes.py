@@ -7,14 +7,14 @@ TwoPointFiveD.cs:307 max)."""
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import RendererConfig
-from illuminant_tpu.lighting.directional import DirectionalLightSource
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import RendererConfig
+from illuminant.lighting.directional import DirectionalLightSource
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
     SphereLightSource,
 )
-from illuminant_tpu.lighting.renderer import LightingRenderer
+from illuminant.lighting.renderer import LightingRenderer
 
 
 def _renderer(lights):

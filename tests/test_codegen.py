@@ -8,9 +8,9 @@ TestGame.cs:93-95).
 
 import numpy as np
 
-from illuminant_tpu.models.codegen import save_as_code
-from illuminant_tpu.models.model import EngineModel
-from illuminant_tpu.models.view import EngineView
+from illuminant.models.codegen import save_as_code
+from illuminant.models.model import EngineModel
+from illuminant.models.view import EngineView
 
 MODEL_JSON = """
 {

@@ -16,12 +16,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from illuminant_tpu.lighting.environment import (
+from illuminant.lighting.environment import (
     LightingEnvironment,
     LightObstruction,
 )
-from illuminant_tpu.sdf import volume as vol
-from illuminant_tpu.sdf.columns import (
+from illuminant.sdf import volume as vol
+from illuminant.sdf.columns import (
     ColumnField,
     build_column_maps,
     reconstruct_profile,
@@ -29,7 +29,7 @@ from illuminant_tpu.sdf.columns import (
     sample_columns,
     sample_columns_grad,
 )
-from illuminant_tpu.sdf.sampling import sample
+from illuminant.sdf.sampling import sample
 
 
 def _prism_env():

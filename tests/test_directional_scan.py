@@ -9,18 +9,18 @@ pixel - direction * ShadowTraceLength, with the trace-length cap).
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.directional import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.directional import (
     DirectionalLightSource,
     accumulate_directional_lights_jit as accumulate_directional_lights,
     pack_directional_lights,
 )
-from illuminant_tpu.lighting.environment import (
+from illuminant.lighting.environment import (
     EnvironmentUniforms,
     LightObstruction,
 )
-from illuminant_tpu.lighting.gbuffer import flat_ground
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.lighting.gbuffer import flat_ground
+from illuminant.sdf.analytic import pack_scene
 
 
 def _setup(trace_length=300.0, direction=(-1.0, 0.0, -0.3)):
@@ -125,8 +125,8 @@ def test_directional_fused_shared_trace_plane():
     height instead of the directional family's own plane. Over-
     nomination is safe (the 3D refine rejects blockers the climbing ray
     clears) — the classification must still agree with the march."""
-    from illuminant_tpu.lighting.directional import directional_scan_args
-    from illuminant_tpu.lighting.scan_shadows import scan_cone_visibility
+    from illuminant.lighting.directional import directional_scan_args
+    from illuminant.lighting.scan_shadows import scan_cone_visibility
 
     scene, gb, lights, env, q = _setup()
     centers, rad, ramp, mtd, _plane = directional_scan_args(
@@ -151,7 +151,7 @@ def test_directional_fused_shared_trace_plane():
 def test_line_light_scan_matches_march():
     """Line-light scan mode (3 anchors blended by u) agrees with the
     3-ray march on lit/shadow classification."""
-    from illuminant_tpu.lighting.line import (
+    from illuminant.lighting.line import (
         LineLightSource,
         accumulate_line_lights_jit,
         pack_line_lights,

@@ -1,4 +1,4 @@
-"""Budgeted dynamic-field regeneration (VERDICT r4 task #7).
+"""Budgeted dynamic-field regeneration.
 
 Reference semantics: DistanceField tracks InvalidSlices
 (DistanceField.cs:13-16), LightingRenderer marks slices dirtied by
@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from illuminant_tpu.ops import sdf_primitives as P
-from illuminant_tpu.sdf import volume as vol
+from illuminant.ops import sdf_primitives as P
+from illuminant.sdf import volume as vol
 
 
 def _cfg(slices=12):

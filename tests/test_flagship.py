@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from illuminant_tpu.scenes import build_flagship
+from illuminant.scenes import build_flagship
 
 
 def test_flagship_frame_composition():
@@ -66,7 +66,7 @@ def test_flagship_frame_loop_matches_single_steps():
 
 
 def test_flagship_parity_preset():
-    """Reference-parity quality row (VERDICT r2 #1): substeps 3, full-res
+    """Reference-parity quality row: substeps 3, full-res
     shadows + march-equivalent refine, round kernel, full payload."""
     sc = build_flagship(height=96, width=128, capacity=1 << 12,
                         spawn_max=256, bin_capacity=256, preset="parity")
@@ -89,7 +89,7 @@ def test_flagship_parity_preset():
 
 
 def test_flagship_full_family():
-    """Full-light-family frame (VERDICT r2 #2): every LightSourceTypeID
+    """Full-light-family frame: every LightSourceTypeID
     contributes — masking out each family must change the image."""
     sc = build_flagship(height=96, width=128, capacity=1 << 12,
                         spawn_max=256, bin_capacity=1016,

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import LightObstruction
-from illuminant_tpu.lighting.scan_shadows import scan_visibility_jit
-from illuminant_tpu.sdf.analytic import pack_scene, scene_sample_p
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import LightObstruction
+from illuminant.lighting.scan_shadows import scan_visibility_jit
+from illuminant.sdf.analytic import pack_scene, scene_sample_p
 
 
 def _random_scene(rng, n_obs):
@@ -51,11 +51,11 @@ def test_scan_visibility_bounded_and_finite(seed):
 
 @pytest.mark.parametrize("seed", [3, 4])
 def test_integrator_never_nans_or_tunnels(seed):
-    from illuminant_tpu.particles.integrate import (
+    from illuminant.particles.integrate import (
         integrate_with_distance_field)
-    from illuminant_tpu.particles.state import (
+    from illuminant.particles.state import (
         ParticleState, SystemUniforms)
-    from illuminant_tpu.particles.render_data import RenderDataUniforms
+    from illuminant.particles.render_data import RenderDataUniforms
 
     rng = np.random.default_rng(seed)
     scene = _random_scene(rng, 3)
@@ -107,9 +107,9 @@ def test_integrator_never_nans_or_tunnels(seed):
 def test_spawner_total_conservation():
     """Total spawned over a long run tracks rate * time despite ring
     wraps and reaping (the rate-error accumulator carries remainders)."""
-    from illuminant_tpu.particles.formula import Formula1, Formula3, Formula4
-    from illuminant_tpu.particles.spawner import Spawner
-    from illuminant_tpu.particles.system import (
+    from illuminant.particles.formula import Formula1, Formula3, Formula4
+    from illuminant.particles.spawner import Spawner
+    from illuminant.particles.system import (
         ParticleSystem, ParticleSystemConfig)
 
     cfg = ParticleSystemConfig(capacity=1 << 11, updates_per_second=0.0,

@@ -3,15 +3,15 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import RendererConfig
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import RendererConfig
+from illuminant.lighting.environment import (
     LightingEnvironment,
     SphereLightSource,
 )
-from illuminant_tpu.lighting.gbuffer import flat_ground
-from illuminant_tpu.lighting.height_volume import rasterize_height_volumes
-from illuminant_tpu.lighting.renderer import LightingRenderer
-from illuminant_tpu.sdf.height_volume import (
+from illuminant.lighting.gbuffer import flat_ground
+from illuminant.lighting.height_volume import rasterize_height_volumes
+from illuminant.lighting.renderer import LightingRenderer
+from illuminant.sdf.height_volume import (
     HeightVolume,
     extruded_polygon_distance,
     pack_height_volumes,
@@ -112,7 +112,7 @@ def test_height_volume_shadows_in_scene():
 
 
 def test_billboard_mask_writes_gbuffer():
-    from illuminant_tpu.lighting.billboard import Billboard, rasterize_billboards
+    from illuminant.lighting.billboard import Billboard, rasterize_billboards
 
     env = LightingEnvironment(z_to_y_multiplier=1.0)
     env_u = env.uniforms()

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from illuminant_tpu.utils import histogram as hg
+from illuminant.utils import histogram as hg
 
 
 def oracle_boundaries(max_value, power, n):
@@ -75,7 +75,7 @@ def test_ignore_zeroes():
 def test_performance_stats():
     import time as _time
 
-    from illuminant_tpu.utils.perf import PerformanceStats
+    from illuminant.utils.perf import PerformanceStats
 
     stats = PerformanceStats(samples=8)
     for _ in range(3):
@@ -91,7 +91,7 @@ def test_performance_stats():
 
 
 def test_normals_from_lightmaps():
-    from illuminant_tpu.utils.mapgen import normals_from_lightmaps
+    from illuminant.utils.mapgen import normals_from_lightmaps
 
     h = w = 16
     # Lit only from the right -> normal leans +x.

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.utils.jumpflood import jump_flood_sdf
+from illuminant.utils.jumpflood import jump_flood_sdf
 
 
 def _oracle(mask):
@@ -35,7 +35,7 @@ def test_jump_flood_matches_bruteforce():
 
 
 def test_jump_flood_feeds_height_from_distance():
-    from illuminant_tpu.utils.mapgen import height_from_distance
+    from illuminant.utils.mapgen import height_from_distance
 
     mask = np.zeros((32, 32), bool)
     mask[8:24, 8:24] = True

@@ -1,4 +1,4 @@
-"""ParticleColorLifeRamp + RoundingPowerFromLife parity (VERDICT r3 #6).
+"""ParticleColorLifeRamp + RoundingPowerFromLife parity.
 
 Reference semantics: UpdateCommon.fxh:6-16,66-80 (life ramp texture,
 POINT-sampled, U clamp / V wrap, strength lerp, negative strength
@@ -10,17 +10,17 @@ power).
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.ops.bezier import constant_bezier, pack_bezier
-from illuminant_tpu.particles.render_data import (
+from illuminant.ops.bezier import constant_bezier, pack_bezier
+from illuminant.particles.render_data import (
     RenderDataUniforms,
     compute_render_data,
     pack_life_ramp_settings,
 )
-from illuminant_tpu.particles.state import ParticleState
-from illuminant_tpu.raster.render import ParticleAppearance, render_particles
-from illuminant_tpu.raster.particles import rasterize_additive
-from illuminant_tpu.raster.sprites import circular_alpha
-from illuminant_tpu.raster.tiled import TiledRasterConfig
+from illuminant.particles.state import ParticleState
+from illuminant.raster.render import ParticleAppearance, render_particles
+from illuminant.raster.particles import rasterize_additive
+from illuminant.raster.sprites import circular_alpha
+from illuminant.raster.tiled import TiledRasterConfig
 
 
 def _uniforms(**kw):
@@ -175,8 +175,8 @@ def test_power_disc_table_binning():
 
 
 def test_json_binding_life_ramp_and_rounding():
-    from illuminant_tpu.models.model import EngineModel
-    from illuminant_tpu.models.view import EngineView
+    from illuminant.models.model import EngineModel
+    from illuminant.models.view import EngineView
 
     import json
 

@@ -2,24 +2,24 @@
 
 import numpy as np
 
-from illuminant_tpu.core.config import QualitySettings, RendererConfig
-from illuminant_tpu.lighting.directional import (
+from illuminant.core.config import QualitySettings, RendererConfig
+from illuminant.lighting.directional import (
     DirectionalLightSource,
     compute_directional_opacity,
     pack_directional_lights,
 )
-from illuminant_tpu.lighting.environment import (
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
     SphereLightSource,
 )
-from illuminant_tpu.lighting.line import (
+from illuminant.lighting.line import (
     LineLightSource,
     closest_point_on_segment,
     compute_line_light_opacity,
     pack_line_lights,
 )
-from illuminant_tpu.lighting.renderer import LightingRenderer
+from illuminant.lighting.renderer import LightingRenderer
 
 
 def test_directional_opacity_oracle():
@@ -108,7 +108,7 @@ def test_line_light_render_color_gradient():
 
 
 def test_volumetric_light_cone():
-    from illuminant_tpu.lighting.volumetric import (
+    from illuminant.lighting.volumetric import (
         SHAPE_CONE,
         VolumetricLightSource,
     )
@@ -136,7 +136,7 @@ def test_volumetric_light_cone():
 
 
 def test_projector_light_projects_texture():
-    from illuminant_tpu.lighting.projector import ProjectorLightSource
+    from illuminant.lighting.projector import ProjectorLightSource
 
     tex = np.zeros((8, 8, 4), np.float32)
     tex[:, :4] = [1.0, 0.0, 0.0, 1.0]  # left half red
@@ -163,7 +163,7 @@ def test_projector_light_projects_texture():
 
 
 def test_replicator_expands_to_sphere_lights():
-    from illuminant_tpu.lighting.environment import (
+    from illuminant.lighting.environment import (
         LightSourceReplicator,
         ReplicatedLight,
     )
@@ -215,13 +215,13 @@ def test_projector_mixed_texture_sizes():
     padding sampled as content)."""
     import numpy as np
     import jax.numpy as jnp
-    from illuminant_tpu.lighting.projector import (
+    from illuminant.lighting.projector import (
         ProjectorLightSource, accumulate_projector_lights,
         pack_projector_lights)
-    from illuminant_tpu.lighting import gbuffer as gbuf
-    from illuminant_tpu.lighting.environment import LightingEnvironment
-    from illuminant_tpu.core.config import QualitySettings
-    from illuminant_tpu.sdf.analytic import pack_scene
+    from illuminant.lighting import gbuffer as gbuf
+    from illuminant.lighting.environment import LightingEnvironment
+    from illuminant.core.config import QualitySettings
+    from illuminant.sdf.analytic import pack_scene
 
     env = LightingEnvironment(ground_z=0.0, maximum_z=64.0)
     gb = gbuf.flat_ground(64, 96, env.uniforms())
@@ -252,7 +252,7 @@ def test_projector_mixed_texture_sizes():
 
 def test_projector_singular_matrix_degrades():
     import numpy as np
-    from illuminant_tpu.lighting.projector import (
+    from illuminant.lighting.projector import (
         ProjectorLightSource, pack_projector_lights)
 
     lights = pack_projector_lights([

@@ -2,19 +2,19 @@
 
 import numpy as np
 
-from illuminant_tpu.core.config import QualitySettings, RendererConfig
-from illuminant_tpu.lighting import cone_trace as ct
-from illuminant_tpu.lighting import sphere as sph
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings, RendererConfig
+from illuminant.lighting import cone_trace as ct
+from illuminant.lighting import sphere as sph
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
     SphereLightSource,
     pack_sphere_lights,
 )
-from illuminant_tpu.lighting.gbuffer import flat_ground
-from illuminant_tpu.lighting.renderer import LightingRenderer, render_lightmap
-from illuminant_tpu.sdf import volume as vol
-from illuminant_tpu.ops import sdf_primitives as sp
+from illuminant.lighting.gbuffer import flat_ground
+from illuminant.lighting.renderer import LightingRenderer, render_lightmap
+from illuminant.sdf import volume as vol
+from illuminant.ops import sdf_primitives as sp
 
 
 def oracle_sphere_opacity(pos, normal, center, radius, ramp, mode,
@@ -179,8 +179,8 @@ def test_incremental_field_updates_match_full():
 
 
 def test_resolve_modes_run():
-    from illuminant_tpu.core.config import HDRConfig
-    from illuminant_tpu.raster.resolve import resolve, to_uint8
+    from illuminant.core.config import HDRConfig
+    from illuminant.raster.resolve import resolve, to_uint8
 
     lightmap = np.random.default_rng(0).uniform(
         0, 4, size=(32, 32, 4)
@@ -201,7 +201,7 @@ def test_resolve_modes_run():
 
 
 def test_lut_resolve():
-    from illuminant_tpu.raster.lut import (
+    from illuminant.raster.lut import (
         LUTBlendingConfiguration,
         identity_lut,
         lut_blended_resolve,
@@ -231,7 +231,7 @@ def test_lut_resolve():
 
 
 def test_vector_warp():
-    from illuminant_tpu.raster.warp import vector_warp
+    from illuminant.raster.warp import vector_warp
 
     bg = np.zeros((32, 32, 4), np.float32)
     bg[:, 16:, 0] = 1.0  # right half red
@@ -246,7 +246,7 @@ def test_vector_warp():
 
 
 def test_normal_refraction_identity_when_flat():
-    from illuminant_tpu.raster.warp import normal_refraction_warp
+    from illuminant.raster.warp import normal_refraction_warp
 
     bg = np.random.default_rng(0).uniform(0, 1, (16, 16, 4)).astype(
         np.float32

@@ -4,14 +4,14 @@ import json
 
 import numpy as np
 
-from illuminant_tpu.models.model import EngineModel
-from illuminant_tpu.models.parameter import (
+from illuminant.models.model import EngineModel
+from illuminant.models.parameter import (
     Bezier,
     MODE_LOOP,
     MODE_SINE,
     Parameter,
 )
-from illuminant_tpu.models.view import EngineView
+from illuminant.models.view import EngineView
 
 SAMPLE = {
     "NamedVariables": {
@@ -135,7 +135,7 @@ def test_parameter_bezier_json_roundtrip():
     for t in (0.0, 0.5, 1.0, 1.7, 2.0):
         np.testing.assert_allclose(b2.evaluate(t), b.evaluate(t))
     # matches the device evaluator
-    from illuminant_tpu.ops.bezier import evaluate_bezier
+    from illuminant.ops.bezier import evaluate_bezier
 
     packed = b.packed()
     for t in (0.0, 0.5, 1.3, 2.0):
@@ -205,7 +205,7 @@ def test_view_instantiates_and_runs():
 
 
 def test_save_as_code_roundtrip(tmp_path):
-    from illuminant_tpu.models.model import save_as_code
+    from illuminant.models.model import save_as_code
 
     model = EngineModel.loads(json.dumps(SAMPLE))
     src = save_as_code(model)
@@ -242,11 +242,11 @@ def test_deterministic_replay():
 def test_view_binding_review_fixes():
     """Round-3 review fixes in the model->engine binding."""
     import numpy as np
-    from illuminant_tpu.models.model import (
+    from illuminant.models.model import (
         EngineModel, SystemModel, TransformModel)
-    from illuminant_tpu.models.view import EngineView, instantiate_transform
-    from illuminant_tpu.particles import transforms as tx
-    from illuminant_tpu.particles.spawner import FeedbackSpawner
+    from illuminant.models.view import EngineView, instantiate_transform
+    from illuminant.particles import transforms as tx
+    from illuminant.particles.spawner import FeedbackSpawner
 
     # Sensor instantiates (was ValueError though the engine supports it).
     s = instantiate_transform(
@@ -299,9 +299,9 @@ def test_view_bezier_parameters_animate():
     """Bezier-animated transform parameters advance with view time (the
     reference evaluates Parameters at `now` every frame; they were
     frozen at t=0)."""
-    from illuminant_tpu.models.model import (
+    from illuminant.models.model import (
         EngineModel, SystemModel, TransformModel)
-    from illuminant_tpu.models.view import EngineView
+    from illuminant.models.view import EngineView
 
     bez = {"Bezier": {"Mode": 0, "Count": 2, "MinValue": 0.0,
                       "MaxValue": 1.0, "A": 0.0, "B": 100.0}}

@@ -11,7 +11,7 @@ Sharded runs use a MESH-BUILT scene (build_flagship(mesh=...)): the scan
 passes pin their sequential nomination walks replicated and the
 per-pixel readout row-sharded (scan_shadows.spmd_mesh), which removes
 the in-loop collective-permute storm that deadlocked XLA:CPU's
-rendezvous in round 3 (VERDICT.md). The unsharded comparison runs a
+rendezvous in round 3. The unsharded comparison runs a
 mesh-free build of the same scene.
 """
 
@@ -20,14 +20,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from illuminant_tpu.parallel import mesh as pmesh
+from illuminant.parallel import mesh as pmesh
 
 SCENE_KW = dict(height=64, width=128, capacity=1 << 12, spawn_max=256,
                 bin_capacity=128)
 
 
 def _build(n_lights=4, mesh=None, **kw):
-    from illuminant_tpu.scenes import build_flagship
+    from illuminant.scenes import build_flagship
 
     return build_flagship(n_lights=n_lights, mesh=mesh, **SCENE_KW, **kw)
 
@@ -121,9 +121,9 @@ def test_spawn_sub_rings_unit():
     """sub_rings spawn: each capacity segment receives count/D rows at a
     shared local cursor; liveness and totals match the global ring up to
     the multiple-of-D rounding."""
-    from illuminant_tpu.particles.spawner import Spawner, spawn
-    from illuminant_tpu.particles.state import ParticleState
-    from illuminant_tpu.particles.formula import Formula1, Formula3
+    from illuminant.particles.spawner import Spawner, spawn
+    from illuminant.particles.state import ParticleState
+    from illuminant.particles.formula import Formula1, Formula3
 
     sp = Spawner(min_rate=0, max_rate=0,
                  life=Formula1(constant=5.0),

@@ -12,21 +12,21 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
     SphereLightSource,
 )
-from illuminant_tpu.lighting import cone_trace as ct
-from illuminant_tpu.lighting import gbuffer as gbuf
-from illuminant_tpu.lighting.particle_light import (
+from illuminant.lighting import cone_trace as ct
+from illuminant.lighting import gbuffer as gbuf
+from illuminant.lighting.particle_light import (
     ParticleLightSource,
     accumulate_particle_lights_jit,
 )
-from illuminant_tpu.lighting.scan_shadows import scan_visibility_jit as scan_visibility
-from illuminant_tpu.particles.state import ParticleState
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.lighting.scan_shadows import scan_visibility_jit as scan_visibility
+from illuminant.particles.state import ParticleState
+from illuminant.sdf.analytic import pack_scene
 
 
 def _particle_state(n, seed=0):

@@ -2,17 +2,17 @@
 
 import numpy as np
 
-from illuminant_tpu.particles.formula import (
+from illuminant.particles.formula import (
     FORMULA_SPHERICAL,
     Formula1,
     Formula3,
     Formula4,
 )
-from illuminant_tpu.particles.spawner import Spawner
-from illuminant_tpu.particles.system import ParticleSystem, ParticleSystemConfig
-from illuminant_tpu.particles import transforms as tx
-from illuminant_tpu.ops import sdf_primitives as sp
-from illuminant_tpu.sdf import volume as vol
+from illuminant.particles.spawner import Spawner
+from illuminant.particles.system import ParticleSystem, ParticleSystemConfig
+from illuminant.particles import transforms as tx
+from illuminant.ops import sdf_primitives as sp
+from illuminant.sdf import volume as vol
 
 
 def basic_spawner(rate=600.0, life=2.0, speed=20.0):
@@ -277,7 +277,7 @@ def test_update_fixed_timestep_accumulation():
 
 
 def test_pattern_spawner_spawns_image_pixels():
-    from illuminant_tpu.particles.spawner import PatternSpawner
+    from illuminant.particles.spawner import PatternSpawner
 
     img = np.zeros((4, 4, 4), np.float32)
     img[1, 2] = [1.0, 0.0, 0.0, 1.0]
@@ -302,7 +302,7 @@ def test_pattern_spawner_spawns_image_pixels():
 
 
 def test_feedback_spawner_inherits_source():
-    from illuminant_tpu.particles.spawner import FeedbackSpawner
+    from illuminant.particles.spawner import FeedbackSpawner
 
     src_cfg = ParticleSystemConfig(capacity=256, updates_per_second=0.0,
                                    life_decay_per_second=0.0)
@@ -365,7 +365,7 @@ def test_sensor_counts_particles_in_area():
 
 
 def test_rasterize_sized_particles():
-    from illuminant_tpu.raster.particles import rasterize_additive
+    from illuminant.raster.particles import rasterize_additive
     import jax.numpy as jnp
 
     cfg = ParticleSystemConfig(capacity=16, updates_per_second=0.0,
@@ -427,7 +427,7 @@ def test_polygon_path_spawning():
 
 
 def test_auto_readback_sprite_list():
-    from illuminant_tpu.particles.system import auto_readback
+    from illuminant.particles.system import auto_readback
 
     cfg = ParticleSystemConfig(capacity=256, updates_per_second=0.0,
                                life_decay_per_second=0.0)
@@ -440,14 +440,13 @@ def test_auto_readback_sprite_list():
 
 
 def test_animated_velocity_post_matrix():
-    """Parameter<DynamicMatrix> spawner post-matrix (VERDICT r2 missing
-    #5): a BezierM velocity post-matrix evaluates at the tick time, so
+    """Parameter<DynamicMatrix> spawner post-matrix: a BezierM velocity post-matrix evaluates at the tick time, so
     the injection angle animates across frames."""
     import jax.numpy as jnp
-    from illuminant_tpu.ops.bezier import (DynamicMatrix,
+    from illuminant.ops.bezier import (DynamicMatrix,
                                            pack_bezier_matrix)
-    from illuminant_tpu.particles.formula import Formula3
-    from illuminant_tpu.particles.spawner import Spawner
+    from illuminant.particles.formula import Formula3
+    from illuminant.particles.spawner import Spawner
 
     bm = pack_bezier_matrix(
         [DynamicMatrix.from_components(angle=0.0),

@@ -9,30 +9,30 @@ ProjectorLight.fx; here shared structurally via ProbePoints).
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
 )
-from illuminant_tpu.lighting import gbuffer as gbuf
-from illuminant_tpu.lighting.line import LineLightSource, pack_line_lights
-from illuminant_tpu.lighting.line import accumulate_line_lights_jit as accumulate_line_lights
-from illuminant_tpu.lighting.probes import (
+from illuminant.lighting import gbuffer as gbuf
+from illuminant.lighting.line import LineLightSource, pack_line_lights
+from illuminant.lighting.line import accumulate_line_lights_jit as accumulate_line_lights
+from illuminant.lighting.probes import (
     LightProbe,
     evaluate_probes_jit as evaluate_probes,
     pack_probes,
 )
-from illuminant_tpu.lighting.projector import (
+from illuminant.lighting.projector import (
     ProjectorLightSource,
     accumulate_projector_lights_jit,
     pack_projector_lights,
 )
-from illuminant_tpu.lighting.volumetric import (
+from illuminant.lighting.volumetric import (
     VolumetricLightSource,
     accumulate_volumetric_lights_jit,
     pack_volumetric_lights,
 )
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.sdf.analytic import pack_scene
 
 H = W = 64
 

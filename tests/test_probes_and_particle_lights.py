@@ -2,28 +2,28 @@
 
 import numpy as np
 
-from illuminant_tpu.core.config import QualitySettings, RendererConfig
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings, RendererConfig
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
     SphereLightSource,
     pack_sphere_lights,
 )
-from illuminant_tpu.lighting.gbuffer import flat_ground
-from illuminant_tpu.lighting.particle_light import (
+from illuminant.lighting.gbuffer import flat_ground
+from illuminant.lighting.particle_light import (
     ParticleLightSource,
     accumulate_particle_lights_jit,
 )
-from illuminant_tpu.lighting.probes import (
+from illuminant.lighting.probes import (
     LightProbe,
     evaluate_probes_jit,
     pack_probes,
 )
-from illuminant_tpu.sdf.analytic import pack_scene
-from illuminant_tpu.particles.formula import Formula1, Formula3, Formula4
-from illuminant_tpu.particles.spawner import Spawner
-from illuminant_tpu.particles.system import ParticleSystem, ParticleSystemConfig
-from illuminant_tpu.particles import transforms as tx
+from illuminant.sdf.analytic import pack_scene
+from illuminant.particles.formula import Formula1, Formula3, Formula4
+from illuminant.particles.spawner import Spawner
+from illuminant.particles.system import ParticleSystem, ParticleSystemConfig
+from illuminant.particles import transforms as tx
 
 
 def test_probes_match_falloff_and_shadow():

@@ -9,11 +9,11 @@ visibility (and is byte-identical on most scenes).
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting import cone_trace as ct
-from illuminant_tpu.lighting.environment import LightObstruction
-from illuminant_tpu.lighting.scan_shadows import scan_visibility_jit
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.core.config import QualitySettings
+from illuminant.lighting import cone_trace as ct
+from illuminant.lighting.environment import LightObstruction
+from illuminant.lighting.scan_shadows import scan_visibility_jit
+from illuminant.sdf.analytic import pack_scene
 
 H, W = 96, 144
 

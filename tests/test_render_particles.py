@@ -3,12 +3,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.particles.state import ParticleState
-from illuminant_tpu.raster.render import (
+from illuminant.particles.state import ParticleState
+from illuminant.raster.render import (
     ParticleAppearance,
     render_particles,
 )
-from illuminant_tpu.raster.tiled import TiledRasterConfig
+from illuminant.raster.tiled import TiledRasterConfig
 
 
 def _state(n=64, h=64, w=64, seed=0):

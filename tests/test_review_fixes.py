@@ -4,30 +4,30 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
     SphereLightSource,
 )
-from illuminant_tpu.lighting import gbuffer as gbuf
-from illuminant_tpu.lighting.particle_light import (
+from illuminant.lighting import gbuffer as gbuf
+from illuminant.lighting.particle_light import (
     ParticleLightSource,
     accumulate_particle_lights_jit,
 )
-from illuminant_tpu.lighting.scan_shadows import scan_visibility_jit as scan_visibility
-from illuminant_tpu.particles.formula import Formula1, Formula3
-from illuminant_tpu.particles.spawner import FeedbackSpawner, PatternSpawner
-from illuminant_tpu.particles.state import ParticleState
-from illuminant_tpu.particles.system import ParticleSystem, \
+from illuminant.lighting.scan_shadows import scan_visibility_jit as scan_visibility
+from illuminant.particles.formula import Formula1, Formula3
+from illuminant.particles.spawner import FeedbackSpawner, PatternSpawner
+from illuminant.particles.state import ParticleState
+from illuminant.particles.system import ParticleSystem, \
     ParticleSystemConfig
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.sdf.analytic import pack_scene
 
 
 def test_pattern_color_multiplies_constant_before_formula():
     # PatternSpawner.fx:70-74: pixel color scales the color CONSTANT,
     # then the formula adds offset/random terms UNtinted.
-    from illuminant_tpu.particles.formula import Formula4
+    from illuminant.particles.formula import Formula4
 
     img = np.zeros((1, 1, 4), np.float32)
     img[0, 0] = [0.5, 1.0, 1.0, 1.0]

@@ -19,14 +19,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import LightObstruction
-from illuminant_tpu.lighting.scan_shadows import scan_visibility_jit as scan_visibility
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import LightObstruction
+from illuminant.lighting.scan_shadows import scan_visibility_jit as scan_visibility
+from illuminant.sdf.analytic import pack_scene
 
 
 def test_alpha_rejects_channels3():
-    from illuminant_tpu.raster.tiled import (
+    from illuminant.raster.tiled import (
         TiledRasterConfig, rasterize_tiled_alpha)
 
     cfg = TiledRasterConfig(height=32, width=32, tile=16, bin_capacity=8,
@@ -44,7 +44,7 @@ def test_nomination_upsample_masked_fractions():
     the no-blocker pixels' meaningless 0 (which drags the refine sample
     toward the light), while the min_d majority vote stays intact."""
     import jax.numpy as jnp
-    from illuminant_tpu.lighting.scan_shadows import _upsample_nominated
+    from illuminant.lighting.scan_shadows import _upsample_nominated
 
     big = 1e9
     min_d = jnp.asarray([[big, 2.0, 2.0, 2.0]], jnp.float32)[None]
@@ -93,7 +93,7 @@ def test_nomination_umbra_edge_tracks_full_res():
 
 
 def test_begin_tick_granularity_accounting():
-    from illuminant_tpu.particles.spawner import Spawner
+    from illuminant.particles.spawner import Spawner
 
     sp = Spawner(min_rate=610.0, max_rate=610.0, spawn_max=1024, seed=3)
     dt = 1.0 / 60.0
@@ -110,9 +110,9 @@ def test_begin_tick_granularity_accounting():
 
 
 def test_spawn_sub_rings_overflow_falls_back_to_scatter():
-    from illuminant_tpu.particles.formula import Formula1, Formula3
-    from illuminant_tpu.particles.spawner import Spawner, spawn
-    from illuminant_tpu.particles.state import ParticleState
+    from illuminant.particles.formula import Formula1, Formula3
+    from illuminant.particles.spawner import Spawner, spawn
+    from illuminant.particles.state import ParticleState
 
     n, smax, d = 64, 128, 4  # spawn_max > capacity: windows self-overlap
     st = ParticleState.empty(n)
@@ -127,12 +127,12 @@ def test_spawn_sub_rings_overflow_falls_back_to_scatter():
 
 
 def test_system_render_consumes_config_z_fields():
-    from illuminant_tpu.particles.formula import Formula1, Formula3
-    from illuminant_tpu.particles.spawner import Spawner
-    from illuminant_tpu.particles.system import (
+    from illuminant.particles.formula import Formula1, Formula3
+    from illuminant.particles.spawner import Spawner
+    from illuminant.particles.system import (
         ParticleSystem, ParticleSystemConfig)
-    from illuminant_tpu.raster.render import render_particles
-    from illuminant_tpu.raster.tiled import TiledRasterConfig
+    from illuminant.raster.render import render_particles
+    from illuminant.raster.tiled import TiledRasterConfig
 
     cfg = ParticleSystemConfig(capacity=256, z_formula=(0.0, 0.0, 1.0, 0.0),
                                size_from_z=0.25)

@@ -15,11 +15,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import LightObstruction
-from illuminant_tpu.lighting.scan_shadows import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import LightObstruction
+from illuminant.lighting.scan_shadows import (
     scan_cone_visibility, scan_visibility_jit)
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.sdf.analytic import pack_scene
 
 
 def _box_scene(cx=44.0, cy=32.0):
@@ -84,8 +84,8 @@ def test_scan_radius_skip_matches_world_units():
 def test_fused_array_lift_matches_scalar_lift():
     # scan_cone_visibility with lift=[1.6, 1.5] must equal two scalar
     # calls (resize-then-lift == lift-then-resize up to f32 rounding).
-    from illuminant_tpu.lighting.gbuffer import flat_ground
-    from illuminant_tpu.lighting.environment import (
+    from illuminant.lighting.gbuffer import flat_ground
+    from illuminant.lighting.environment import (
         LightingEnvironment)
 
     scene = _box_scene()
@@ -117,7 +117,7 @@ def test_projector_window_centers_scaled_to_pixels():
     # the accumulate_windowed call; pin the call-site contract by
     # checking window_origin lands the window on the projected quad.
     import inspect
-    from illuminant_tpu import scenes
+    from illuminant import scenes
 
     src = inspect.getsource(scenes)
     at = src.index("projector_centers\"]", src.index("accumulate_windowed"))
@@ -132,7 +132,7 @@ def test_compound_umbra_bounds():
     exact march bounded — mean < 0.035 and < 2% of pixels off by more
     than 0.8 at the library-default quality (was mean 0.080 with whole
     slivers at error 1.0 before the round-3 fixes)."""
-    from illuminant_tpu.lighting import cone_trace as ct
+    from illuminant.lighting import cone_trace as ct
 
     H, W = 192, 192
     scene = pack_scene([

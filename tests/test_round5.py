@@ -2,7 +2,7 @@
 
 1. `downsample2x_linear` (lighting/scan_shadows.py) replaces
    jax.image.resize for the exact-2x visibility downsample so the plane
-   stays shard-local (VERDICT r4 task #8, PARALLEL.md round-5
+   stays shard-local (PARALLEL.md round-5
    inventory: 0 all-gathers). It must be numerically IDENTICAL to the
    resize it replaces — edge-kernel renormalization included.
 """
@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from illuminant_tpu.lighting.scan_shadows import downsample2x_linear
+from illuminant.lighting.scan_shadows import downsample2x_linear
 
 
 @pytest.mark.parametrize("shape,axis", [

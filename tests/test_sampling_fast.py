@@ -1,9 +1,9 @@
-"""TPU fast sampling paths vs the gather oracle (round 4).
+"""Gather-free sampling paths vs the gather oracle.
 
 `sample` (sdf/sampling.py) is the reference-parity 8-tap gather
-(sampleDistanceFieldEx, DistanceFieldCommon.fxh:313-353); the MXU
+(sampleDistanceFieldEx, DistanceFieldCommon.fxh:313-353); the
 interpolation-matrix path and the separable grid/stack path must match
-it — exactly for the grid path, to bf16-relative precision for the MXU
+it — exactly for the grid path, to bf16-relative precision for the matmul
 path (the SDF's 1-Lipschitz property keeps the absolute error near
 surfaces at ~2^-8 * |d|; see sampling.py module docstring).
 """
@@ -13,12 +13,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from illuminant_tpu.lighting.environment import (
+from illuminant.lighting.environment import (
     LightingEnvironment,
     LightObstruction,
 )
-from illuminant_tpu.sdf import sampling, volume as vol
-from illuminant_tpu.sdf.analytic import (
+from illuminant.sdf import sampling, volume as vol
+from illuminant.sdf.analytic import (
     scene_normal_p,
     scene_sample_p,
 )
@@ -26,13 +26,14 @@ from illuminant_tpu.sdf.analytic import (
 
 import pytest as _pytest
 
-from illuminant_tpu.sdf import analytic as _analytic
+from illuminant.sdf import analytic as _analytic
 
 
 @_pytest.fixture(autouse=True)
 def _force_interp_dispatch():
-    """This module pins the TPU MXU/interp paths' semantics on the CPU
-    backend — force the accelerator dispatch (analytic._use_interp)."""
+    """This module pins the interpolation-matrix paths' semantics on
+    the CPU backend, whose platform choice is the gather — force them
+    (analytic._use_interp)."""
     prev = _analytic.set_interp_dispatch("always")
     yield
     _analytic.set_interp_dispatch(prev)
@@ -186,7 +187,7 @@ def test_scene_normal_p_fast_voxel(field):
 
 
 def test_ao_stack_matches_scattered_on_flat_ground(field):
-    from illuminant_tpu.lighting.sphere import compute_ao_p
+    from illuminant.lighting.sphere import compute_ao_p
 
     h, w = 64, 96
     xs = (jnp.arange(w, dtype=jnp.float32) + 0.5) * 2.0

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting import cone_trace as ct
-from illuminant_tpu.lighting.scan_shadows import scan_visibility_jit as scan_visibility
-from illuminant_tpu.sdf.analytic import pack_scene
-from illuminant_tpu.lighting.environment import LightObstruction
+from illuminant.core.config import QualitySettings
+from illuminant.lighting import cone_trace as ct
+from illuminant.lighting.scan_shadows import scan_visibility_jit as scan_visibility
+from illuminant.sdf.analytic import pack_scene
+from illuminant.lighting.environment import LightObstruction
 
 
 def _setup():
@@ -69,9 +69,9 @@ def test_fast_stack_quarter_res_nomination_tracks_march():
     the walk runs at QUARTER of the lightmap grid) must stay close to
     the exact march — the bound that justifies the library-default
     quality point."""
-    from illuminant_tpu.lighting.gbuffer import flat_ground
-    from illuminant_tpu.lighting.environment import EnvironmentUniforms
-    from illuminant_tpu.lighting.scan_shadows import scan_cone_visibility
+    from illuminant.lighting.gbuffer import flat_ground
+    from illuminant.lighting.environment import EnvironmentUniforms
+    from illuminant.lighting.scan_shadows import scan_cone_visibility
 
     scene, _, light = _setup()
     H = W = 256

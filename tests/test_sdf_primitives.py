@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from illuminant_tpu.ops import sdf_primitives as sp
+from illuminant.ops import sdf_primitives as sp
 
 
 def rand_points(n, scale=50.0, seed=0):
@@ -125,8 +125,8 @@ def test_degenerate_ellipsoid_no_nans():
     path and closed-form normals divided by r^2 unclamped)."""
     import numpy as np
     import jax.numpy as jnp
-    from illuminant_tpu.lighting.environment import LightObstruction
-    from illuminant_tpu.sdf.analytic import (
+    from illuminant.lighting.environment import LightObstruction
+    from illuminant.sdf.analytic import (
         pack_scene, scene_normal_p, scene_sample_p)
 
     obs = [LightObstruction.ellipsoid((10.0 * i, 5.0, 4.0), (4.0, 4.0, 0.0))
@@ -148,7 +148,7 @@ def test_degenerate_ellipsoid_no_nans():
 def test_scene_queries_handle_none_field():
     import numpy as np
     import jax.numpy as jnp
-    from illuminant_tpu.sdf.analytic import scene_normal_p, scene_sample_p
+    from illuminant.sdf.analytic import scene_normal_p, scene_sample_p
 
     d = scene_sample_p(None, jnp.zeros(4), jnp.zeros(4), jnp.zeros(4))
     assert np.isfinite(np.asarray(d)).all()
@@ -160,8 +160,8 @@ def test_scene_queries_handle_none_field():
 def test_pack_scene_rejects_unknown_type():
     import pytest
     import dataclasses
-    from illuminant_tpu.lighting.environment import LightObstruction
-    from illuminant_tpu.sdf.analytic import pack_scene
+    from illuminant.lighting.environment import LightObstruction
+    from illuminant.sdf.analytic import pack_scene
 
     bad = LightObstruction.box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
     bad.type = 42

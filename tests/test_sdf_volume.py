@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from illuminant_tpu.ops import sdf_primitives as sp
-from illuminant_tpu.sdf import sampling, volume as vol
+from illuminant.ops import sdf_primitives as sp
+from illuminant.sdf import sampling, volume as vol
 
 
 def sphere_volume(radius=20.0, center=(64.0, 64.0, 32.0), scale=0.5):

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.lighting.spherical_harmonics import (
+from illuminant.lighting.spherical_harmonics import (
     GIProbe,
     bake_probe_from_lights,
     fibonacci_sphere,

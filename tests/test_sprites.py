@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.raster.sprites import (
+from illuminant.raster.sprites import (
     SpriteTable,
     _render_variant,
     animation_frame,
@@ -11,7 +11,7 @@ from illuminant_tpu.raster.sprites import (
     rasterize_sprites_jit as rasterize_sprites,
     select_bins,
 )
-from illuminant_tpu.raster.tiled import TiledRasterConfig
+from illuminant.raster.tiled import TiledRasterConfig
 
 
 def _glow_texture(n=16):
@@ -130,11 +130,11 @@ def test_animation_frame_from_velocity():
 
 
 def test_sprites_alpha_matches_oracle():
-    """Textured ordered-alpha (VERDICT r2 missing #1): per-slot 'over'
+    """Textured ordered-alpha: per-slot 'over'
     compositing with the sprite's factored coverage as opacity. Oracle
     composites the SAME factored variants in draw order, isolating the
     compositing logic from the (already-bounded) SVD error."""
-    from illuminant_tpu.raster.sprites import rasterize_sprites_alpha_jit as rasterize_sprites_alpha
+    from illuminant.raster.sprites import rasterize_sprites_alpha_jit as rasterize_sprites_alpha
 
     tex = _glow_texture()
     support = 11
@@ -182,7 +182,7 @@ def test_sprites_alpha_matches_oracle():
 
 
 def test_sprites_alpha_draw_order_last_on_top():
-    from illuminant_tpu.raster.sprites import rasterize_sprites_alpha_jit as rasterize_sprites_alpha
+    from illuminant.raster.sprites import rasterize_sprites_alpha_jit as rasterize_sprites_alpha
 
     tex = np.ones((8, 8), np.float32)  # solid square sprite
     support = 9
@@ -206,8 +206,8 @@ def test_sprites_alpha_draw_order_last_on_top():
 def test_render_particles_textured_alpha_and_zformula():
     """render_particles dispatch: textured + alpha no longer raises, and
     z_formula orders compositing back-to-front (fx:101-102 screen Z)."""
-    from illuminant_tpu.particles.state import ParticleState
-    from illuminant_tpu.raster.render import (ParticleAppearance,
+    from illuminant.particles.state import ParticleState
+    from illuminant.raster.render import (ParticleAppearance,
                                               render_particles)
 
     tex = np.ones((8, 8), np.float32)
@@ -246,8 +246,8 @@ def test_render_particles_textured_alpha_and_zformula():
 
 
 def test_size_from_z_scales_size():
-    from illuminant_tpu.particles.state import ParticleState
-    from illuminant_tpu.raster.render import render_particles
+    from illuminant.particles.state import ParticleState
+    from illuminant.raster.render import render_particles
 
     cfg = TiledRasterConfig(height=32, width=32, tile=32, bin_capacity=16,
                             apron=4, rgba8_colors=False, channels=4)

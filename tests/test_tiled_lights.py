@@ -4,22 +4,22 @@ dense full evaluation, binning correctness, and capacity diagnostics."""
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting import gbuffer as gbuf
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting import gbuffer as gbuf
+from illuminant.lighting.environment import (
     LightingEnvironment,
     SphereLightSource,
 )
-from illuminant_tpu.lighting.particle_light import (
+from illuminant.lighting.particle_light import (
     ParticleLightSource,
     accumulate_particle_lights,
 )
-from illuminant_tpu.lighting.tiled_lights import (
+from illuminant.lighting.tiled_lights import (
     accumulate_sphere_lights_tiled,
     bin_lights_to_tiles,
 )
-from illuminant_tpu.particles.state import ParticleState
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.particles.state import ParticleState
+from illuminant.sdf.analytic import pack_scene
 
 
 def _setup(n=96, h=96, w=160, seed=3):
@@ -130,7 +130,7 @@ def test_capacity_overflow_reported():
 def test_tiled_respects_fullbright_and_ao_parity():
     # With an obstruction field + AO template, tiled still matches the
     # dense path (AO is per-pixel since the template radius is shared).
-    from illuminant_tpu.lighting.environment import LightObstruction
+    from illuminant.lighting.environment import LightObstruction
 
     env, gb, st = _setup(n=48, seed=11)
     scene = pack_scene([

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.raster.tiled import (
+from illuminant.raster.tiled import (
     KERNEL_GAUSS,
     KERNEL_POINT,
     KERNEL_QUAD,
@@ -255,7 +255,7 @@ def test_compact_payload_matches_full():
 
 
 def test_int8_splat_matches_oracle():
-    """int8 MXU splat (TiledRasterConfig.int8_splat): coverage in 1/127
+    """int8 matmul splat (TiledRasterConfig.int8_splat): coverage in 1/127
     steps, colors in color_scale/127 steps — additive sums stay within
     a slightly wider tolerance than the bf16 path."""
     h, w, n = 96, 64, 1500
@@ -280,7 +280,7 @@ def test_round_kernel_matches_exact_circular_profile():
     """KERNEL_ROUND (the parity preset's disc): the shipped quadratic
     approximation of sqrt(1 - edge^2/2) must track the exact separable
     profile (max poly error 9.7e-4, under 1/4 LSB of 8-bit coverage)."""
-    from illuminant_tpu.raster.tiled import KERNEL_ROUND
+    from illuminant.raster.tiled import KERNEL_ROUND
 
     def exact_profile(d, radius):
         t = np.clip(radius - np.abs(d) + 0.5, 0.0, 1.0)

@@ -8,19 +8,19 @@ verified against an exact numpy re-implementation of the fxh loop.
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
 )
-from illuminant_tpu.lighting import gbuffer as gbuf
-from illuminant_tpu.lighting.volumetric import (
+from illuminant.lighting import gbuffer as gbuf
+from illuminant.lighting.volumetric import (
     SHAPE_ELLIPSOID,
     VolumetricLightSource,
     accumulate_volumetric_lights_jit,
     pack_volumetric_lights,
 )
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.sdf.analytic import pack_scene
 
 
 def _box_sdf(p, center, size):

@@ -1,4 +1,4 @@
-"""Voxel-field flagship variant (VERDICT r3 #8): the flagship frame
+"""Voxel-field flagship variant: the flagship frame
 rendered from a baked save/load SdfVolume static partition plus a
 per-frame regenerated dynamic partition — the field path a shipped
 Lumined scene exercises (DistanceField.cs:18-22, Save/Load :178-213,
@@ -9,18 +9,19 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from illuminant_tpu.sdf import volume as vol
+from illuminant.sdf import volume as vol
 
 
 import pytest as _pytest
 
-from illuminant_tpu.sdf import analytic as _analytic
+from illuminant.sdf import analytic as _analytic
 
 
 @_pytest.fixture(autouse=True)
 def _force_interp_dispatch():
-    """This module pins the TPU MXU/interp paths' semantics on the CPU
-    backend — force the accelerator dispatch (analytic._use_interp)."""
+    """This module pins the interpolation-matrix paths' semantics on
+    the CPU backend, whose platform choice is the gather — force them
+    (analytic._use_interp)."""
     prev = _analytic.set_interp_dispatch("always")
     yield
     _analytic.set_interp_dispatch(prev)
@@ -41,8 +42,8 @@ def test_voxel_flagship_matches_analytic():
     """EXACT refine mode (scan_refine_mode="exact"): candidates sample
     the voxel volume — the frame must match the analytic frame to voxel
     quantization (the round-4 bound)."""
-    from illuminant_tpu.core.config import QualitySettings
-    from illuminant_tpu.scenes import build_flagship
+    from illuminant.core.config import QualitySettings
+    from illuminant.scenes import build_flagship
 
     q = QualitySettings(scan_refine_mode="exact")
     kw = dict(height=96, width=160, capacity=1 << 10, spawn_max=128,
@@ -67,13 +68,13 @@ def test_voxel_flagship_matches_analytic():
 def test_voxel_flagship_carried_refine_bound():
     """DEFAULT (carried) refine mode: the scan rides the blocker
     column's interval and reconstructs candidates elementwise (zero
-    scattered samples — the 60 fps lever, PERF.md round 5). The
+    scattered samples). The
     approximation is CONSERVATIVE near moving convex occluders (88% of
     >0.1-visibility errors darken); this pins the measured image-level
     bound at the test scale. 96x160 is the WORST case — the error is
     nomination-grid-relative (measured: mean 1.57 here, 0.37 at
     192x320, both vs the analytic frame)."""
-    from illuminant_tpu.scenes import build_flagship
+    from illuminant.scenes import build_flagship
 
     kw = dict(height=96, width=160, capacity=1 << 10, spawn_max=128,
               n_lights=4)
@@ -89,7 +90,7 @@ def test_voxel_flagship_carried_refine_bound():
 
 
 def test_voxel_flagship_dynamic_occluders_move():
-    from illuminant_tpu.scenes import build_flagship
+    from illuminant.scenes import build_flagship
 
     sv = build_flagship(field="voxel", height=96, width=160,
                         capacity=1 << 10, spawn_max=128, n_lights=4,

@@ -4,25 +4,26 @@ analytic-scene scan on the same geometry."""
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting.environment import (
     LightingEnvironment,
     LightObstruction,
 )
-from illuminant_tpu.lighting.scan_shadows import scan_visibility_jit as scan_visibility
-from illuminant_tpu.sdf import volume as vol
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.lighting.scan_shadows import scan_visibility_jit as scan_visibility
+from illuminant.sdf import volume as vol
+from illuminant.sdf.analytic import pack_scene
 
 
 import pytest as _pytest
 
-from illuminant_tpu.sdf import analytic as _analytic
+from illuminant.sdf import analytic as _analytic
 
 
 @_pytest.fixture(autouse=True)
 def _force_interp_dispatch():
-    """This module pins the TPU MXU/interp paths' semantics on the CPU
-    backend — force the accelerator dispatch (analytic._use_interp)."""
+    """This module pins the interpolation-matrix paths' semantics on
+    the CPU backend, whose platform choice is the gather — force them
+    (analytic._use_interp)."""
     prev = _analytic.set_interp_dispatch("always")
     yield
     _analytic.set_interp_dispatch(prev)

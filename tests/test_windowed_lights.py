@@ -8,19 +8,19 @@ match. Mirrors the reference's per-light instanced quads
 import numpy as np
 import jax.numpy as jnp
 
-from illuminant_tpu.core.config import QualitySettings
-from illuminant_tpu.lighting import gbuffer as gbuf
-from illuminant_tpu.lighting.environment import (
+from illuminant.core.config import QualitySettings
+from illuminant.lighting import gbuffer as gbuf
+from illuminant.lighting.environment import (
     LightObstruction,
     LightingEnvironment,
 )
-from illuminant_tpu.lighting.volumetric import (
+from illuminant.lighting.volumetric import (
     VolumetricLightSource,
     accumulate_volumetric_lights,
     pack_volumetric_lights,
 )
-from illuminant_tpu.lighting.windowed import accumulate_windowed
-from illuminant_tpu.sdf.analytic import pack_scene
+from illuminant.lighting.windowed import accumulate_windowed
+from illuminant.sdf.analytic import pack_scene
 
 
 def _take_light(lights, i):

@@ -1,7 +1,7 @@
 """Visual regression artifacts for the documented approximations.
 
 Renders side-by-side comparisons so the numeric bounds in PERF.md have a
-visual anchor (VERDICT r2 weak #7):
+visual anchor:
   out/approx_scan_vs_march.png     exact cone march | scan | 8x |diff|
   out/approx_particle_light.png    full eval | strided subset | 8x |diff|
 
@@ -25,15 +25,15 @@ import jax.numpy as jnp  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from illuminant_tpu.core.config import QualitySettings  # noqa: E402
-from illuminant_tpu.lighting import cone_trace as ct  # noqa: E402
-from illuminant_tpu.lighting.environment import (  # noqa: E402
+from illuminant.core.config import QualitySettings  # noqa: E402
+from illuminant.lighting import cone_trace as ct  # noqa: E402
+from illuminant.lighting.environment import (  # noqa: E402
     LightObstruction,
     SphereLightSource,
 )
-from illuminant_tpu.lighting.scan_shadows import scan_visibility  # noqa: E402
-from illuminant_tpu.sdf.analytic import pack_scene  # noqa: E402
-from illuminant_tpu.utils.image import write_png  # noqa: E402
+from illuminant.lighting.scan_shadows import scan_visibility  # noqa: E402
+from illuminant.sdf.analytic import pack_scene  # noqa: E402
+from illuminant.utils.image import write_png  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "out")
@@ -72,14 +72,14 @@ def scan_vs_march():
 
 
 def particle_light_subset():
-    from illuminant_tpu.core.config import RendererConfig
-    from illuminant_tpu.lighting import gbuffer as gbuf
-    from illuminant_tpu.lighting.environment import LightingEnvironment
-    from illuminant_tpu.lighting.particle_light import (
+    from illuminant.core.config import RendererConfig
+    from illuminant.lighting import gbuffer as gbuf
+    from illuminant.lighting.environment import LightingEnvironment
+    from illuminant.lighting.particle_light import (
         ParticleLightSource,
         accumulate_particle_lights,
     )
-    from illuminant_tpu.particles.state import ParticleState
+    from illuminant.particles.state import ParticleState
 
     H, W = 192, 192
     env = LightingEnvironment(ground_z=0.0, maximum_z=64.0)

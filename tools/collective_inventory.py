@@ -1,4 +1,4 @@
-"""Collective inventory of the sharded flagship frame (VERDICT r2 #5).
+"""Collective inventory of the sharded flagship frame.
 
 Compiles the full frame over an 8-device CPU mesh at the requested shape
 and counts the collective ops XLA inserted (all-reduce, all-gather,
@@ -28,8 +28,8 @@ import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 
-from illuminant_tpu.parallel import mesh as pmesh  # noqa: E402
-from illuminant_tpu.scenes import build_flagship  # noqa: E402
+from illuminant.parallel import mesh as pmesh  # noqa: E402
+from illuminant.scenes import build_flagship  # noqa: E402
 
 COLLECTIVES = (
     "all-reduce", "all-gather", "collective-permute", "all-to-all",
